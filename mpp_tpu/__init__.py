@@ -1,4 +1,4 @@
-"""mpp_tpu — a TPU-native multi-physics (land-surface PDE) solver framework.
+"""mpp_tpu — a batched multi-physics (land-surface PDE) solver framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the MPP
 library (reference at /root/reference): finite-volume systems of governing

@@ -10,7 +10,7 @@ within the Newton stop-criterion's determinacy band (e.g. 2.5e-5 Pa for
 vsfm_vchannel vs its 1e-12 tolerance).  This module replicates the
 algorithm of ``ops/ilu.py`` (the serial numpy parity engine) as pure
 jitted JAX with a batch axis, so facade-built problems solved on the
-compiled TPU path reproduce the goldens.
+compiled batched path reproduce the goldens.
 
 Everything static (sparsity, schedules) is padded numpy baked at trace
 time; the numeric phases are ``lax.scan`` row sweeps (factorization,
@@ -25,6 +25,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+HIGHEST = lax.Precision.HIGHEST
 
 
 class BatchedILU0:
@@ -227,8 +229,8 @@ def petsc_gmres_batched(matvec, data, b, ilu: BatchedILU0 = None,
             w = M(matvec(data, V[:, j]))
             # classical Gram-Schmidt: unset V rows are zero, so the full
             # contraction equals V[:j+1] @ w
-            h = jnp.einsum("cin,cn->ci", V, w)
-            w = w - jnp.einsum("ci,cin->cn", h, V)
+            h = jnp.einsum("cin,cn->ci", V, w, precision=HIGHEST)
+            w = w - jnp.einsum("ci,cin->cn", h, V, precision=HIGHEST)
             hlast = jnp.linalg.norm(w, axis=-1)
             V2 = V.at[:, j + 1].set(
                 w / jnp.where(hlast == 0, 1.0, hlast)[:, None])
@@ -261,13 +263,14 @@ def petsc_gmres_batched(matvec, data, b, ilu: BatchedILU0 = None,
         # mj-truncated back-substitution: y_k = 0 for k >= mj
         def backsub(i, y):
             jrow = m - 1 - i
-            num = g[:, jrow] - jnp.einsum("ck,ck->c", H[:, jrow, :m], y)
+            num = g[:, jrow] - jnp.einsum("ck,ck->c", H[:, jrow, :m], y,
+                                          precision=HIGHEST)
             hjj = H[:, jrow, jrow]
             yi = num / jnp.where(hjj == 0, 1.0, hjj)
             yi = jnp.where(jrow < mj, yi, 0.0)
             return y.at[:, jrow].set(yi)
         y = lax.fori_loop(0, m, backsub, jnp.zeros((ncol, m), dtype))
-        dx = jnp.einsum("ci,cin->cn", y, V[:, :m])
+        dx = jnp.einsum("ci,cin->cn", y, V[:, :m], precision=HIGHEST)
         return x + dx, found
 
     def cond(state):

@@ -1,4 +1,4 @@
-"""Compiled batched KSP: facade-built linear problems on the TPU path.
+"""Compiled batched KSP: facade-built linear problems on the batched path.
 
 The analog of :mod:`~mpp_tpu.batched.vsfm_compiled` for the reference's
 KSP stack (``SOEBaseStepDT_KSP``, SystemOfEquationsBaseType.F90:555-647
@@ -41,7 +41,6 @@ import jax
 import jax.numpy as jnp
 
 from mpp_tpu.constants import Cond
-from mpp_tpu.ops.tridiag import thomas
 
 
 class CompiledKSP:
@@ -53,7 +52,7 @@ class CompiledKSP:
         comp.install()                  # soe.step_dt now runs compiled
         converged = soe.step_dt(dt)
 
-    Batched use (production/TPU)::
+    Batched use (production)::
 
         T, ok, iters = comp.step_batched(T, bc_values, ss_values, dt, dyn=dyn)
     """
@@ -139,14 +138,6 @@ class CompiledKSP:
                              for b in (0, 1, 2)]
             self._tri_rows = [coo_r[i].astype(np.int32)
                               for i in self._tri_idx]
-            nvals = band.size
-            if nvals * 3 * self.n <= 2 ** 22:
-                M = np.zeros((nvals, 3 * self.n), np.float32)
-                M[np.arange(nvals),
-                  (band * self.n + coo_r).astype(np.int64)] = 1.0
-                self._tri_M = M          # numpy; jnp.asarray at use
-            else:
-                self._tri_M = None
             return
         if self.linear_solver == "petsc":
             from mpp_tpu.batched.ilu_gmres import BatchedILU0
@@ -213,23 +204,13 @@ class CompiledKSP:
         asm = jax.vmap(self._assemble_one, in_axes=(0, 0, 0, None, 0))
         vals, b = asm(T, bc, ss, dt, dyn)
         if self.is_tridiag:
-            from mpp_tpu.models.richards import _use_matmul_scatter
-            if getattr(self, "_tri_M", None) is not None \
-                    and _use_matmul_scatter(T.dtype):
-                bands = jnp.dot(vals, jnp.asarray(self._tri_M),
-                                precision="float32")
-                n = self.n
-                dl, d, du = (bands[:, :n], bands[:, n:2 * n],
-                             bands[:, 2 * n:])
-            else:
-                diags = []
-                for i, rows in zip(self._tri_idx, self._tri_rows):
-                    diags.append(jnp.zeros((T.shape[0], self.n), T.dtype)
-                                 .at[:, jnp.asarray(rows)]
-                                 .add(vals[:, jnp.asarray(i)]))
-                dl, d, du = diags
-            from mpp_tpu.ops.pallas_kernels import pallas_thomas
-            x = pallas_thomas(dl, d, du, b)
+            diags = []
+            for i, rows in zip(self._tri_idx, self._tri_rows):
+                diags.append(jnp.zeros((T.shape[0], self.n), T.dtype)
+                             .at[:, jnp.asarray(rows)]
+                             .add(vals[:, jnp.asarray(i)]))
+            from mpp_tpu.ops.pallas_kernels import tridiag_solve
+            x = tridiag_solve(*diags, b)
             return x, jnp.all(jnp.isfinite(x), axis=-1), jnp.ones((), jnp.int32)
         if self._ilu is not None:
             from mpp_tpu.batched.ilu_gmres import petsc_gmres_batched
@@ -275,7 +256,7 @@ class CompiledKSP:
 
     def install(self):
         """Route the SoE's ``step_dt`` through the compiled path, so
-        existing facade problem drivers run on the TPU production path
+        existing facade problem drivers run on the batched production path
         without modification."""
         self.soe.step_dt = self.step_dt
         return self

@@ -1,4 +1,4 @@
-"""Batched (jnp) multi-layer canopy: the TPU production path.
+"""Batched (jnp) multi-layer canopy: the production path.
 
 Functional re-expression of ``models/mlc.py`` (itself a transcription of
 ``soe/SystemOfEquationsMLCType.F90`` and the three canopy GEs): the

@@ -1,5 +1,5 @@
 """Compiled MLC: the facade-built multi-layer-canopy KSP problem on the
-batched TPU path.
+batched path.
 
 The MLC analog of :mod:`~mpp_tpu.batched.ksp_compiled` (VERDICT r3 item
 3): a problem built through ``MLCMPP`` (meshes, 3·ntree+2 fused GE

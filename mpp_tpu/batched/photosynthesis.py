@@ -1,4 +1,4 @@
-"""Batched (jnp) photosynthesis / stomatal conductance: the TPU
+"""Batched (jnp) photosynthesis / stomatal conductance: the
 production path.
 
 Functional re-expression of ``models/photosynthesis.py`` (itself a

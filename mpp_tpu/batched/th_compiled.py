@@ -1,5 +1,5 @@
 """Compiled batched TH / thermal-enthalpy: the SNES thermal family on the
-TPU production path.
+batched production path.
 
 Closes the last "two stacks" gap of the SNES SoE families: a problem built
 through the ``THMPP`` facade (coupled Richards mass + enthalpy energy,
@@ -87,7 +87,7 @@ class CompiledTH(CompiledVSFM):
 
     # ---- interleaved 2x2 block-tridiagonal direct solve -------------------
     def _plan_solver(self):
-        """TPU-idiomatic direct solve for the TH 2x2 block system.
+        """Batched direct solve for the TH 2x2 block system.
 
         The SoE template orders unknowns [P-block; T-block] (the
         reference's DMComposite layout, MultiPhysicsProbBaseType.F90:
@@ -98,10 +98,10 @@ class CompiledTH(CompiledVSFM):
         system with 2x2 blocks, solved exactly by the batched
         block-Thomas sweep (ops/block_thomas) in O(n) work per column
         — instead of a batched dense LU (O(n^3), and a pivoted LU
-        lowers catastrophically slowly on TPU).  ``linear_solver=
+        serializes on its row pivots).  ``linear_solver=
         "petsc"`` (the default) keeps the reference-replica
         ILU(0)+GMRES(30) for golden-trajectory parity; "direct" is the
-        production TPU path (exact solve, so Newton trajectories match
+        production path (exact solve, so Newton trajectories match
         the f64 goldens to solver tolerance)."""
         t = self.template
         from mpp_tpu.batched.ilu_gmres import make_ell_matvec
@@ -137,12 +137,10 @@ class CompiledTH(CompiledVSFM):
         if getattr(self, "_th_blk", None) is None:
             return super()._solve(data, F)
         slots, mask = self._th_blk
-        from mpp_tpu.ops.pallas_kernels import pallas_block_thomas2
+        from mpp_tpu.ops.pallas_kernels import block_tridiag2_solve
         blk = data[:, slots] * mask.astype(data.dtype)  # [ncol,3,nh,2,2]
         b = jnp.stack([F[:, :self.nh], F[:, self.nh:]], axis=-1)
-        # VMEM-resident Pallas sweep on TPU f32 (scan fallback off-TPU
-        # and for f64 parity runs)
-        x = pallas_block_thomas2(blk[:, 0], blk[:, 1], blk[:, 2], b)
+        x = block_tridiag2_solve(blk[:, 0], blk[:, 1], blk[:, 2], b)
         return jnp.concatenate([x[..., 0], x[..., 1]], axis=-1)
 
     # ---- pure single-column evaluation (the TH exchange + 2x2 blocks) ----

@@ -1,4 +1,4 @@
-"""Batched (jnp) canopy turbulence: the TPU production path.
+"""Batched (jnp) canopy turbulence: the production path.
 
 Functional re-expression of ``models/canopy_turbulence.py`` (itself a
 transcription of ``ge/CanopyTurbulence.F90``): all canopy-air columns
@@ -7,7 +7,7 @@ a *batched* hybrid/Brent root solve (``MathTools.F90:38-235`` semantics,
 one function evaluation per iteration for every lane, per-lane
 convergence masks), and the RSL psi-hat lookup is a vectorized bilinear
 gather.  Everything is pure jnp — jit/vmap/shard_map compatible — so the
-MLC presolve can run on TPU at production column counts.
+MLC presolve can run on the device at production column counts.
 
 The serial numpy module remains the golden-parity path; this module is
 verified against it lane-for-lane (tests/test_batched_canopy.py).
@@ -365,8 +365,7 @@ def batched_hybrid(fn, x0_init, x1_init, tol, itmax=40, brent_itmax=50,
         d_new = jnp.where(use_interp, d_new, xm)
         a_next = b
         fa_next = fb
-        # (copysign spelled with where: f64 copysign bitcasts to s64,
-        # which the TPU X64 rewriter rejects; tol1 > 0 so this is exact)
+        # (copysign spelled with where; tol1 > 0 so this is exact)
         b_step = jnp.where(jnp.abs(d_new) > tol1, b + d_new,
                            b + jnp.where(xm >= 0.0, tol1, -tol1))
         bit_next = jnp.where(in_brent, st.bit + 1, st.bit)

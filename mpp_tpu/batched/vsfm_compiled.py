@@ -1,4 +1,4 @@
-"""Compiled batched VSFM: facade-built problems on the TPU production path.
+"""Compiled batched VSFM: facade-built problems on the batched production path.
 
 This module closes the gap between the two stacks: a problem built through
 the ``VSFMMPP`` facade (meshes, connection sets, conditions, per-cell
@@ -45,7 +45,8 @@ from mpp_tpu.ops.snes import (CONVERGED_FNORM_ABS, CONVERGED_FNORM_RELATIVE,
                               CONVERGED_SNORM_RELATIVE, DIVERGED_FNORM_NAN,
                               DIVERGED_LINE_SEARCH, DIVERGED_MAX_IT,
                               DIVERGED_DTOL)
-from mpp_tpu.ops.tridiag import thomas
+from mpp_tpu.ops import pallas_kernels
+from mpp_tpu.ops.tridiag import tridiag_matvec
 from mpp_tpu.constants import FMWH2O
 
 
@@ -74,7 +75,7 @@ class CompiledVSFM:
         comp = compile_vsfm(mpp)
         converged, reason = comp.step_dt(dt, istep)   # instead of soe.step_dt
 
-    Batched use (production/TPU)::
+    Batched use (production)::
 
         X, iters, ok, reason = comp.step_batched(X, bc_values, ss_values, dt)
     """
@@ -94,12 +95,11 @@ class CompiledVSFM:
         "fused" evaluates residual+Jacobian together at the line
         search's full-step trial and carries the accepted bands into the
         next iteration — one constitutive chain per iteration instead
-        of two when full steps are accepted, but measured SLOWER on
-        mass-backtracking batches (sharp-front stress at [16384, 64]:
-        25.2 vs 19.9 ms/step — the carry/merge overhead and per-
-        iteration Jacobian re-evaluations for backtracked columns eat
-        the saving).  Identical iteration map either way (pinned by the
-        golden suites passing in both modes)."""
+        of two when full steps are accepted; on batches where many
+        columns backtrack, the carry/merge overhead and the Jacobian
+        re-evaluations for backtracked columns can eat the saving.
+        Identical iteration map either way (pinned by the golden suites
+        passing in both modes)."""
         self.linear_solver = linear_solver
         if linesearch_jac not in ("separate", "fused"):
             raise ValueError(linesearch_jac)
@@ -212,19 +212,6 @@ class CompiledVSFM:
                              for b in (0, 1, 2)]
             self._tri_rows = [coo_r[i].astype(np.int32)
                               for i in self._tri_idx]
-            # matmul-lowered band assembly for the TPU f32 path (the
-            # backend drops fused scatter-adds at batch widths <= 2048;
-            # see models/richards._use_matmul_scatter).  Gated by size:
-            # [nvals, 3n] stays small for column problems.
-            nvals = band.size
-            if nvals * 3 * self.n <= 2 ** 22:
-                M = np.zeros((nvals, 3 * self.n), np.float32)
-                M[np.arange(nvals),
-                  (band * self.n + coo_r).astype(np.int64)] = 1.0
-                self._tri_M = M          # numpy; jnp.asarray at use
-            else:
-                self._tri_M = None
-
             # CSR slot of each (i,i-1)/(i,i)/(i,i+1) entry; missing slots
             # point at entry 0 — their value is ignored by the Thomas sweep
             # (dl[0] multiplies a zero carry; du[-1] multiplies x_{n}=0).
@@ -241,22 +228,8 @@ class CompiledVSFM:
             self._d_slots = slot_of(0, 0)
             self._du_slots = slot_of(0, +1)
 
-            # the Jacobian action for the BT initslope runs through the
-            # production stencil SpMV (ops/pallas_kernels — the kernel
-            # bench.py measures; jnp fallback off-TPU).  f32 runs store
-            # the action's diagonals in bf16 (tridiag_spmv_mixed: 30%
-            # fewer bytes/nnz, accuracy loss inside the line search's
-            # alpha=1e-4 fuzz); f64 parity runs keep full precision.
-            def tridiag_mv(data, x):
-                from mpp_tpu.ops.pallas_kernels import (tridiag_spmv,
-                                                        tridiag_spmv_mixed)
-                dl, d, du = data      # _jac_one_tridiag's diagonal tuple
-                if x.dtype == jnp.float32:
-                    return tridiag_spmv_mixed(dl.astype(jnp.bfloat16),
-                                              d.astype(jnp.bfloat16),
-                                              du.astype(jnp.bfloat16), x)
-                return tridiag_spmv(dl, d, du, x)
-            self._matvec = tridiag_mv
+            # the Jacobian action for the BT initslope
+            self._matvec = lambda data, x: tridiag_matvec(*data, x)
             # mask out slots that don't exist (value would alias another)
             self._dl_mask = np.array(
                 [np.any(cols[t.indptr[r]:t.indptr[r + 1]] == r - 1)
@@ -270,11 +243,7 @@ class CompiledVSFM:
         F [ncol, n]."""
         if self.is_tridiag:
             dl, d, du = data          # _jac_one_tridiag's diagonal tuple
-            # VMEM-tiled Pallas sweep on TPU f32 (0.42-0.61 of the
-            # bytes-moved roofline by nz, BENCH_r04 thomas_kernel; 6-12x
-            # the scan form) — scan elsewhere
-            from mpp_tpu.ops.pallas_kernels import pallas_thomas
-            return pallas_thomas(dl, d, du, F)
+            return pallas_kernels.tridiag_solve(dl, d, du, F)
         if self._ilu is not None:
             from mpp_tpu.batched.ilu_gmres import petsc_gmres_batched
             lu = self._ilu.factor(data)
@@ -337,12 +306,6 @@ class CompiledVSFM:
 
     def _tri_assemble(self, v, dtype):
         """COO contribution values -> (dl, d, du) bands (tridiag plans)."""
-        from mpp_tpu.models.richards import _use_matmul_scatter
-        if self._tri_M is not None and _use_matmul_scatter(dtype):
-            bands = jnp.dot(v, jnp.asarray(self._tri_M),
-                            precision="float32")
-            n = self.n
-            return (bands[:n], bands[n:2 * n], bands[2 * n:])
         out = []
         for i, rows in zip(self._tri_idx, self._tri_rows):
             out.append(jnp.zeros(self.n, dtype)
@@ -877,7 +840,7 @@ class CompiledVSFM:
 
     def install(self):
         """Route the SoE's ``step_dt`` through the compiled path, so
-        existing facade problem drivers run on the TPU production path
+        existing facade problem drivers run on the batched production path
         without modification."""
         self.mpp.soe.step_dt = self.step_dt
         return self

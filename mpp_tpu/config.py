@@ -63,7 +63,7 @@ def enable_nan_debug(mode: str = "debug_nans") -> None:
 
     ``debug_nans``: turn on ``jax_debug_nans`` — any NaN produced inside
     a jitted computation raises immediately with a de-optimized re-run
-    pinpointing the primitive (the TPU analog of ``-fpe trap`` builds).
+    pinpointing the primitive (the analog of ``-fpe trap`` builds).
     ``disable``: turn it back off.
     """
     import jax
@@ -73,6 +73,24 @@ def enable_nan_debug(mode: str = "debug_nans") -> None:
         jax.config.update("jax_debug_nans", False)
     else:
         raise ValueError(f"unknown NaN-debug mode '{mode}'")
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here.  Otherwise the cache lives at the fixed
+    ``<repo>/.jax_cache`` (gitignored): the path is part of the cache
+    key, so a directory that moves never hits."""
+    import os
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cache = os.path.join(repo, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", cache)
+    return cache
 
 
 def maybe_enable_nan_debug_from_env() -> bool:

@@ -1,4 +1,4 @@
-"""Registry of IDs and physical constants for the TPU multi-physics framework.
+"""Registry of IDs and physical constants for the multi-physics framework.
 
 Mirrors the enum/constant registry of the reference library
 (``src/mpp/util/MultiPhysicsProbConstants.F90:17-217``) so that problem

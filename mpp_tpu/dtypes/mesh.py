@@ -1,6 +1,6 @@
 """Control-volume mesh and connection sets as static SoA topology.
 
-TPU-first redesign of the reference's mesh/connection data model
+Batched redesign of the reference's mesh/connection data model
 (``src/mpp/dtypes/MeshType.F90``, ``ConnectionSetType.F90``,
 ``src/mpp/util/mpp_mesh_utils.F90``):
 

@@ -4,7 +4,7 @@ The reference wraps every sub-solver of the coupled ml_model in
 ``PetscLogEventRegister/Begin/End`` pairs
 (``driver/standalone/ml_model/ml_model_problem.F90:323-336,377-409``)
 so ``-log_view`` reports per-phase counts and times.  Here each phase
-is a named accumulator; on TPU the scopes additionally surface in the
+is a named accumulator; on the device the scopes also surface in the
 JAX profiler timeline via ``jax.profiler.TraceAnnotation``.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-layer canopy (MLC) model: coupled canopy air temperature, canopy
 air vapor, and sunlit/shaded leaf temperature (KSP path).
 
-TPU-native reimplementation of:
+JAX reimplementation of:
 
 * ``soe/SystemOfEquationsMLCType.F90`` — 4-block coupled linear system
   with a turbulence presolve (Obukhov length / wind / conductance
@@ -64,7 +64,7 @@ class MLCSoE:
 
     Deviation from the reference's per-GE object graph: the 3·ntree+2
     governing-equation blocks are FUSED at assembly into one SoA layout
-    on the owning ``MLCMPP`` (the TPU-efficient form); this SoE carries
+    on the owning ``MLCMPP`` (the batched form); this SoE carries
     the solver-orchestration surface over that fused state."""
 
     def __init__(self, mpp: "MLCMPP"):

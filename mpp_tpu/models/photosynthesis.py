@@ -1,6 +1,6 @@
 """Photosynthesis / stomatal-conductance model (SNES path).
 
-TPU-native reimplementation of the reference's photosynthesis stack:
+JAX reimplementation of the reference's photosynthesis stack:
 
 * per-cell auxvar state + constitutive chain (Farquhar C3 / Collatz C4
   biochemistry, temperature response fns ft/fth/fth25, electron transport,
@@ -28,7 +28,7 @@ TPU-native reimplementation of the reference's photosynthesis stack:
   + BT-with-full-steps semantics.
 
 State is numpy SoA [ncell] / [ncell, ndof]; the whole chain is
-elementwise and maps 1:1 onto a jnp/vmap batched Newton for the TPU
+elementwise and maps 1:1 onto a jnp/vmap batched Newton for the device
 production path (glibc libm is used here for golden-file bit parity).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Canopy radiation transfer: shortwave and longwave GEs (KSP path).
 
-TPU-native reimplementation of:
+JAX reimplementation of:
 
 * ``ge/GoveqnShortwave.F90`` — two-band (vis/nir) two-stream canopy
   shortwave: dof=4 per cell [Iup_vis, Idn_vis, Iup_nir, Idn_nir]; auxvar
@@ -358,7 +358,7 @@ class _RadiationMPPBase(MPPBase):
     def step_dt(self, dt, istep=1, solver="ksp"):
         """One KSP step.  ``solver="ksp"`` is the golden-parity path
         (GMRES+ILU(0) iterate, as PETSc records it); ``solver="block"``
-        is the batched TPU production path — the same COO values scattered
+        is the batched production path — the same COO values scattered
         into per-column block-tridiagonal form and solved exactly with the
         batched block-Thomas sweep (ops/block_structure.py)."""
         ge = self.goveqns[0]

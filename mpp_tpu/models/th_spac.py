@@ -8,7 +8,7 @@ and an enthalpy energy GE (:818-861), pairwise-coupled internally
 at coupling connections (soil<->root over every root layer,
 root<->xylem at the junction; b_cpl_data :891-967).
 
-TPU-first design decisions (deviations from the reference mechanics,
+Batched design decisions (deviations from the reference mechanics,
 same physics):
 
 * Cross-mesh coupling fluxes are computed ONCE per connection at the

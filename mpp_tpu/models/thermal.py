@@ -1,6 +1,6 @@
 """Temperature-based soil heat transport (KSP path) — GE + SoE + MPP facade.
 
-TPU-native reimplementation of the reference's thermal-T stack:
+JAX reimplementation of the reference's thermal-T stack:
 
 * auxvar constitutive update: ``ThermalKSPTemperatureSoilAuxType.F90:72-172``
   (CLM soil thermal conductivity / heat capacity model)
@@ -611,7 +611,7 @@ class ThermalSOE:
         PostSolve copies soln -> soln_prev.
 
         ``solver="ksp"`` is the golden-parity GMRES+ILU(0) path;
-        ``solver="block"`` is the batched TPU production path for
+        ``solver="block"`` is the batched production path for
         column-chain meshes — the identical COO values scattered into
         per-column tridiagonal blocks and solved with the exact batched
         Thomas sweep (ops/block_structure.py)."""

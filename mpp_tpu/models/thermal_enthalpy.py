@@ -1,6 +1,6 @@
 """Enthalpy-based soil heat transport GE + TH coupled SoE (SNES path).
 
-TPU-native reimplementation of the reference's thermal-enthalpy stack:
+JAX reimplementation of the reference's thermal-enthalpy stack:
 
 * auxvar constitutive chain with the max(P, P_ref) clamp on the EOS
   (density/viscosity/internal-energy only; sat/kr/por use raw P):
@@ -416,7 +416,7 @@ class ThermalEnthalpyGE(RichardsGE):
                    accum_prev=None, bc_pressure=None):
         """Energy residual (length ncells_local).  The optional dynamic
         inputs default to the staged attributes (serial path); the
-        compiled batched TPU path passes them explicitly."""
+        compiled batched path passes them explicitly."""
         if bc_value is None:
             bc_value = self.bc_value
         if ss_value is None:

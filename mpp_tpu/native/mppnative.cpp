@@ -1,6 +1,6 @@
 // mppnative: C++ runtime layer for mpp_tpu.
 //
-// TPU-native re-implementation of the *setup/runtime* subsystems the
+// Re-implementation of the *setup/runtime* subsystems the
 // reference consumes from PETSc (SURVEY.md section 2.0):
 //
 //  * mpp_csr_template      -- static CSR sparsity discovery from

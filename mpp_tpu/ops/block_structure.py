@@ -6,7 +6,7 @@ within a level or reaches level k±1 of the same column (two-point flux
 discretization on column meshes; radiation two-stream bands;
 MATPREALLOCATOR sparsity of ``soe/SystemOfEquationsBaseType.F90:593-613``
 discovers exactly this band structure).  Instead of a CSR solve, the
-TPU-native path scatters the same COO values into [ncol, nlev, m, m]
+batched path scatters the same COO values into [ncol, nlev, m, m]
 sub/diag/super blocks and solves with the exact batched block-Thomas
 sweep (``ops/block_thomas``).
 

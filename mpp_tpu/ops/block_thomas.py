@@ -6,10 +6,9 @@ each canopy level to the adjacent levels only (the 4-block DMComposite
 fill of ``soe/SystemOfEquationsMLCType.F90:333-455`` has no couplings
 beyond level k±1), and the radiation two-stream systems couple [Iup, Idn]
 between adjacent layers (``ge/GoveqnShortwave.F90:421-560``).  PETSc
-solves them with GMRES+ILU(0); TPU-natively the exact block LU sweep is
-both faster and deterministic: each scan step is an [ncol, m, m] batched
-small-matrix factor/solve that maps onto the MXU/VPU, with columns as the
-batch lane.
+solves them with GMRES+ILU(0); here the exact block LU sweep is both
+faster and deterministic: each scan step is an [ncol, m, m] batched
+small-matrix factor/solve, with columns as the batch axis.
 
 All functions are pure jnp, jit/vmap/shard_map compatible.
 """
@@ -34,10 +33,10 @@ def block_thomas(L, D, U, b):
     2-8 for the canopy systems), then back-substitution; both are
     ``lax.scan`` over levels with the batch axes vectorized.
 
-    The tiny matmuls run at HIGHEST precision: the TPU default (bf16
-    MXU passes) loses ~3 decimal digits per level and visibly corrupts
-    the recurrence over ~100 levels; these ops are VPU-bound at m<=8,
-    so full f32 costs nothing.
+    The tiny matmuls run at HIGHEST precision: a reduced-precision
+    default (bf16 passes, or TF32 on a GPU) loses ~3 decimal digits per
+    level and visibly corrupts the recurrence over ~100 levels; at m<=8
+    full f32 costs nothing.
     """
     with jax.default_matmul_precision("highest"):
         return _block_thomas_impl(L, D, U, b)
@@ -48,9 +47,10 @@ def small_solve(A, B):
     B [..., m, k] with m static and small.
 
     ``jnp.linalg.solve`` lowers each solve to a pivoted LAPACK-style LU
-    whose row-pivot loop serializes catastrophically on TPU (a 2x2
-    solve inside a 32-level scan costs ~160 ms at ncol=8192 — ~500x
-    the arithmetic); here m<=2 uses the closed-form adjugate and
+    whose row-pivot loop serializes per level; here m<=2 uses the
+    closed-form adjugate (no pivoting: the blocks must be
+    well-conditioned, as the diagonally dominant TH, canopy and
+    radiation blocks are) and
     3<=m<=8 an UNROLLED Gauss-Jordan with per-batch partial pivoting
     (m static steps of vectorized ops: argmax + take_along_axis row
     swap, rank-1 elimination).  Larger m falls back to linalg.solve.
@@ -124,8 +124,14 @@ def _block_thomas_impl(L, D, U, b):
 def block_tridiag_matvec(L, D, U, x):
     """y = T x for batched block-tridiagonal T.
 
-    Shapes as in :func:`block_thomas`; x is [..., n, m].
+    Shapes as in :func:`block_thomas`; x is [..., n, m].  Full f32
+    precision (no TF32 products), as in :func:`block_thomas`.
     """
+    with jax.default_matmul_precision("highest"):
+        return _block_tridiag_matvec_impl(L, D, U, x)
+
+
+def _block_tridiag_matvec_impl(L, D, U, x):
     y = (D @ x[..., None])[..., 0]
     lo = (L[..., 1:, :, :] @ x[..., :-1, :, None])[..., 0]
     hi = (U[..., :-1, :, :] @ x[..., 1:, :, None])[..., 0]

@@ -9,7 +9,7 @@ at.  This module replicates that algorithm deterministically in f64 so our
 answers agree with the goldens to the printed 13 digits.
 
 This numpy implementation is the correctness/regression path (small
-serial systems).  The TPU production path uses batched per-column
+serial systems).  The batched production path uses batched per-column
 tridiagonal factorizations (for which ILU(0) is the exact LU) and the
 JAX Krylov solvers in ``ops/krylov.py``.
 """

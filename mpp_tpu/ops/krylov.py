@@ -2,7 +2,7 @@
 
 Replaces PETSc KSP (``soe/SystemOfEquationsBaseType.F90:555-647`` consumes
 KSPSolve) with pure-JAX iterations built on ``lax.while_loop`` so they jit
-on CPU and TPU.  All solvers take a ``matvec`` closure (CSR SpMV, batched
+on the CPU and the GPU.  All solvers take a ``matvec`` closure (CSR SpMV, batched
 tridiagonal, or dense) and an optional left preconditioner ``M`` (a
 closure y = M^{-1} r).
 
@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+HIGHEST = lax.Precision.HIGHEST
 
 
 class KrylovResult(NamedTuple):
@@ -44,7 +46,7 @@ def cg(matvec: Callable, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
     r0 = b - matvec(x0)
     z0 = M(r0)
     p0 = z0
-    rz0 = jnp.vdot(r0, z0)
+    rz0 = jnp.vdot(r0, z0, precision=HIGHEST)
 
     def cond(state):
         x, r, p, rz, k = state
@@ -53,11 +55,11 @@ def cg(matvec: Callable, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
     def body(state):
         x, r, p, rz, k = state
         Ap = matvec(p)
-        alpha = rz / jnp.vdot(p, Ap)
+        alpha = rz / jnp.vdot(p, Ap, precision=HIGHEST)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=HIGHEST)
         beta = rz_new / rz
         p = z + beta * p
         return (x, r, p, rz_new, k + 1)
@@ -87,18 +89,19 @@ def bicgstab(matvec: Callable, b: jnp.ndarray,
 
     def body(state):
         x, r, p, v, rho, alpha, omega, k = state
-        rho_new = jnp.vdot(rhat, r)
+        rho_new = jnp.vdot(rhat, r, precision=HIGHEST)
         beta = (rho_new / jnp.where(rho == 0, eps, rho)) * (
             alpha / jnp.where(omega == 0, eps, omega))
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = matvec(phat)
-        alpha = rho_new / jnp.vdot(rhat, v)
+        alpha = rho_new / jnp.vdot(rhat, v, precision=HIGHEST)
         s = r - alpha * v
         shat = M(s)
         t = matvec(shat)
-        tt = jnp.vdot(t, t)
-        omega = jnp.vdot(t, s) / jnp.where(tt == 0, eps, tt)
+        tt = jnp.vdot(t, t, precision=HIGHEST)
+        omega = (jnp.vdot(t, s, precision=HIGHEST)
+                 / jnp.where(tt == 0, eps, tt))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         return (x, r, p, v, rho_new, alpha, omega, k + 1)
@@ -145,7 +148,8 @@ def gmres(matvec: Callable, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
             # modified Gram-Schmidt against v_0..v_j
             def mgs(i, wh):
                 w, h = wh
-                hij = jnp.where(i <= j, jnp.vdot(V[i], w), 0.0)
+                hij = jnp.where(i <= j,
+                                jnp.vdot(V[i], w, precision=HIGHEST), 0.0)
                 w = w - hij * V[i]
                 h = h.at[i].set(hij)
                 return (w, h)
@@ -181,12 +185,12 @@ def gmres(matvec: Callable, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
         # back-substitution  H[:m,:m] y = g[:m]  (upper triangular)
         def backsub(i, y):
             j = m - 1 - i
-            num = g[j] - jnp.dot(H[j, :], y)
+            num = g[j] - jnp.dot(H[j, :], y, precision=HIGHEST)
             hjj = H[j, j]
             y = y.at[j].set(num / jnp.where(hjj == 0, 1.0, hjj))
             return y
         y = lax.fori_loop(0, m, backsub, jnp.zeros(m, dtype))
-        dx = jnp.einsum("i,in->n", y, V[:m])
+        dx = jnp.einsum("i,in->n", y, V[:m], precision=HIGHEST)
         return x + dx
 
     def cond(state):

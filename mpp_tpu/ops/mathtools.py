@@ -5,7 +5,7 @@ Reimplements ``src/mpp/ge/MathTools.F90``:
 * ``hybrid``  (MathTools.F90:38-132)  — secant iteration with Brent backup
 * ``zbrent``  (MathTools.F90:135-235) — Brent's method
 * ``tridiag`` (MathTools.F90:238-283) — Thomas algorithm (host-side; the
-  batched TPU variant lives in ``ops/tridiag.py``)
+  batched variant lives in ``ops/tridiag.py``)
 * ``beta_function`` / ``log_gamma_function`` (MathTools.F90:286-340)
 
 These are host-side float64 scalar routines used where the reference uses

@@ -223,9 +223,9 @@ def satparams_dyn_clm(satfunc_type: str, sat_res, alpha, lam):
                         "smooth_brooks_corey_bz3"):
         AA = 3 if satfunc_type.endswith("bz2") else 2
         gs = 0.9          # = -alpha * ps with ps = -0.9/alpha
-        gu = np.empty_like(lam)
-        for lv in np.unique(lam):
-            gu[lam == lv] = _find_gu_sbc_zero_coeff(float(lv), AA, gs)
+        lam_u, inv = np.unique(lam, return_inverse=True)
+        gu = np.array([_find_gu_sbc_zero_coeff(float(lv), AA, gs)
+                       for lv in lam_u])[inv].reshape(lam.shape)
         ps = -0.9 / alpha
         pu = gu / (-alpha)
         bc_at_pu = gu ** (-lam)
@@ -450,7 +450,7 @@ _SAT_INV_DISPATCH = {
 # Benign stand-in parameter values used for lanes NOT selected by a model in
 # the _blend where-chain.  jnp.where evaluates both branches; without these,
 # zero placeholder params (m=0, d=0, ...) raise divide-by-zero warnings on CPU
-# and produce inf*0 NaNs under TPU fast-math even though the lane is masked.
+# and produce inf*0 NaNs under fast-math even though the lane is masked.
 _SAFE_PARAMS = dict(
     sat_res=0.2, alpha=1e-4, vg_m=0.5, vg_n=2.0, bc_lambda=0.5,
     sbc_pu=-10.0, sbc_ps=-1.0, sbc_b2=0.0, sbc_b3=0.0,

@@ -14,7 +14,7 @@ defaults, so this module replicates:
   divtol=1e4, max_it=50, max_funcs=10000),
 * inner KSP = GMRES(30)+ILU(0) at rtol 1e-5 (ops/ilu.py).
 
-The production/TPU path is the batched masked-Newton in JAX (built on the
+The production path is the batched masked-Newton in JAX (built on the
 same residual/Jacobian assembly); this serial implementation is the
 regression-parity and small-problem reference solver.
 """

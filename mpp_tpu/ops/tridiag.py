@@ -1,14 +1,13 @@
-"""Batched tridiagonal (Thomas) solver — the TPU-native preconditioner.
+"""Batched tridiagonal (Thomas) solver — the plain reference.
 
 The reference's per-column implicit systems (vertical Richards / thermal
 columns) are tridiagonal; PETSc solved them with ILU(0) which *is* the
-exact LU of a tridiagonal matrix.  On TPU we batch columns as the leading
-axis and sweep levels with ``lax.scan``: each step is an elementwise op
-over the [ncol] lane dimension, so the VPU stays full and HBM traffic is
-the roofline limit.
+exact LU of a tridiagonal matrix.  Columns are the leading batch axis and
+``lax.scan`` sweeps the levels: each step is an elementwise op over the
+[ncol] columns.  This is what the CPU runs; on the GPU the compiled steps
+call the kernel behind ``ops/pallas_kernels.tridiag_solve``.
 
-Also provides a stencil (offset-diagonal) SpMV for batched tridiagonal
-systems — the TPU equivalent of CSR SpMV for this framework's operators.
+Also provides the tridiagonal SpMV (the Jacobian action).
 """
 from __future__ import annotations
 
@@ -55,28 +54,11 @@ def thomas(dl, d, du, b):
 def tridiag_matvec(dl, d, du, x):
     """y = T x for batched tridiagonal T given as three diagonals.
 
-    Concatenate-of-slices form: fuses into a single elementwise pass on
-    TPU (the ``.at[].add`` form materializes an extra intermediate and
-    costs ~40% more HBM traffic).
+    Concatenate-of-slices form: XLA fuses it into a single elementwise
+    pass (the ``.at[].add`` form materializes an extra intermediate).
     """
     z = jnp.zeros_like(x[..., :1])
     lo = jnp.concatenate([z, dl[..., 1:] * x[..., :-1]], -1)
     hi = jnp.concatenate([du[..., :-1] * x[..., 1:], z], -1)
     return d * x + lo + hi
 
-
-def stencil_spmv(diags, x):
-    """Offset-diagonal SpMV: ``diags`` is a list of (offset, values) where
-    values has the same batch shape as x.  Used by the roofline benchmark
-    (the framework's operators are unions of offset diagonals: vertical
-    tridiagonal + lateral neighbor bands)."""
-    y = jnp.zeros_like(x)
-    for off, vals in diags:
-        if off == 0:
-            y = y + vals * x
-        elif off > 0:
-            y = y.at[..., :-off].add(vals[..., :-off] * x[..., off:])
-        else:
-            k = -off
-            y = y.at[..., k:].add(vals[..., k:] * x[..., :-k])
-    return y

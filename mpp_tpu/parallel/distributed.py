@@ -3,7 +3,7 @@
 The reference's distribution is MPI via PETSc (PETSC_COMM_WORLD from
 MPI_COMM_WORLD, standalone_mpp.F90:75-76) with in-library scatters
 (UnstructuredGridType.F90) — SURVEY §5 'distributed communication
-backend'.  TPU-natively: ``jax.distributed`` forms the multi-host
+backend'.  Here ``jax.distributed`` forms the multi-host
 process group, every host contributes its local chips to one global
 ``Mesh``, and the same `shard_map`/`ppermute` lateral machinery
 (parallel/sharding.py, parallel/ugrid.py) rides ICI within a slice and

@@ -2,7 +2,7 @@
 
 The reference distributes grid columns over MPI ranks with host-model
 ghost-column exchange (``dtypes/UnstructuredGridType.F90:22-66``,
-``alm/MPPVSFMALM_Driver.F90:483-490``).  TPU-natively: the column axis is
+``alm/MPPVSFMALM_Driver.F90:483-490``).  Here the column axis is
 sharded over a 1-D ``jax.sharding.Mesh`` axis ("col"); the implicit
 vertical solves stay embarrassingly parallel per shard, and lateral
 coupling uses `ppermute` neighbor halos inside `shard_map` — the

@@ -9,7 +9,7 @@ connections from unstructured ldomain adjacency
 (``alm/MPPVSFMALM_Initialize.F90:588-795``) and exchanges ghost columns
 each step.
 
-TPU-native re-design:
+Batched re-design:
 
 * ``UGrid`` — the GLOBAL column graph: ncol columns in *natural*
   (application) order + an undirected adjacency edge list with geometric

@@ -90,7 +90,7 @@ def run_photosynthesis_problem(pathway="c4", scm="medlyn",
                                ncair=1, ntree=1, compiled=False):
     """``compiled=True`` routes the SNES solve through the jitted batched
     Newton (batched/photosynthesis.compile_photosynthesis) instead of the
-    serial host iteration — same physics chain, TPU driver."""
+    serial host iteration — same physics chain, batched driver."""
     c3psn = PATHWAYS[pathway]
     gstype = SCMS[scm]
     nz = NZ_CAIR

@@ -43,7 +43,7 @@ def run_heat_transport_1d(nz=100, dtime=3600.0, nstep=2, compiled=False):
 
     ``compiled=True`` routes step_dt through the jitted batched
     single-update stepper (batched/th_compiled.CompiledThermalEnthalpy)
-    instead of the serial host solve — same physics, TPU driver."""
+    instead of the serial host solve — same physics, batched driver."""
     nx = ny = 1
     mpp = ThermalEnthalpyMPP()
     mpp.set_name("1D heat conduction")

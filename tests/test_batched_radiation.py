@@ -1,4 +1,4 @@
-"""Batched block-tridiagonal radiation solve (TPU production path) vs the
+"""Batched block-tridiagonal radiation solve (production path) vs the
 serial GMRES+ILU(0) golden path and the exact dense solution."""
 import numpy as np
 import pytest

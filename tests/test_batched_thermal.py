@@ -1,4 +1,4 @@
-"""Batched block-Thomas thermal solve (TPU production path) vs the serial
+"""Batched block-Thomas thermal solve (production path) vs the serial
 GMRES+ILU(0) golden path on the 1-D MMS column problem."""
 import numpy as np
 

@@ -1,4 +1,4 @@
-"""Batched-column VSFM (TPU path): physics consistency + sharding.
+"""Batched-column VSFM (batched path): physics consistency + sharding.
 
 Checks the batched f64 solver against the serial regression-grade VSFM
 solve on the celia1990 configuration (constant density in the batched
@@ -50,7 +50,7 @@ def test_batched_newton_converges_and_is_columnwise_independent():
 
 
 def test_batched_matches_serial_vsfm_constant_density():
-    """Batched TPU-path solver vs the regression-grade serial VSFM on the
+    """Batched-path solver vs the regression-grade serial VSFM on the
     same problem (constant density in both)."""
     from mpp_tpu.models import vsfm_batched as vb
     from mpp_tpu.problems.vsfm_celia1990 import run_vsfm_celia1990_problem

@@ -65,7 +65,7 @@ def test_block_thomas_m1_matches_scalar_thomas():
 
 
 def test_small_solve_matches_lapack_with_pivoting():
-    """small_solve (closed-form 2x2 / unrolled Gauss-Jordan, the TPU
+    """small_solve (closed-form 2x2 / unrolled Gauss-Jordan, the batched
     replacement for per-level jnp.linalg.solve) must match LAPACK on
     systems that REQUIRE row pivoting (zero leading diagonal)."""
     from mpp_tpu.ops.block_thomas import small_solve

@@ -1,5 +1,5 @@
 """Batched end-to-end canopy pipeline (lwv -> lbl -> psy -> mlc) — the
-TPU production path for the ml_model substep loop.  Physics-envelope
+production path for the ml_model substep loop.  Physics-envelope
 tests: the fully-jitted substep must converge to a physical canopy state
 and be batch-consistent (every identical column produces the identical
 answer)."""

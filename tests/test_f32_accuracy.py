@@ -1,6 +1,6 @@
-"""f32 TPU-path accuracy measurement (VERDICT r1 item 9).
+"""f32 batched-path accuracy measurement (VERDICT r1 item 9).
 
-The production batched VSFM solver runs in f32 on TPU while the golden
+The production batched VSFM solver runs in f32 on the device while the golden
 parity suite runs f64 on CPU.  This test quantifies what f32 delivers on
 the same problem: pressure deviation, per-column mass-balance error, and
 Newton-iteration inflation.  Policy (documented here and in README):
@@ -57,7 +57,7 @@ def test_f32_vs_f64_step():
 
 def test_f32_no_nans_under_stress():
     """Stiff dry-to-wet jump in f32 must not produce NaNs (guards the
-    masked satfunc branches on TPU fast-math)."""
+    masked satfunc branches under fast-math)."""
     p = vb.ColumnParams.uniform(NZ, dtype=jnp.float32)
     P0 = jnp.full((NCOL, NZ), -1.0e6, jnp.float32)
     bc_top = jnp.full((NCOL,), 1.01325e5, jnp.float32)

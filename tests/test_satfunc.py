@@ -166,3 +166,20 @@ def test_porosity():
     por, dpor = porosity(pl, jnp.array([2.0e5]))
     assert float(por[0]) == pytest.approx(0.35 + 1.0e5 * 1e-9)
     assert float(dpor[0]) == pytest.approx(1e-9)
+
+
+@pytest.mark.parametrize("satfunc_type,AA", [("smooth_brooks_corey_bz3", 2),
+                                             ("smooth_brooks_corey_bz2", 3)])
+def test_satparams_dyn_clm_matches_scalar_solve(satfunc_type, AA):
+    """The per-column SBC staging solves the pu multiplier once per
+    distinct lambda and maps it back; repeated and distinct lambdas get
+    exactly the scalar solve's value."""
+    rng = np.random.default_rng(0)
+    lam = 1.0 / (2.0 + 2.0 * rng.random((7, 5)))
+    lam[0] = lam[1]
+    alpha = 1.0 / ((20.0 + 20.0 * rng.random((7, 5))) * 9.80616)
+    out = sf.satparams_dyn_clm(satfunc_type, np.full((7, 5), 0.1), alpha,
+                               lam)
+    want = np.vectorize(
+        lambda lv: sf._find_gu_sbc_zero_coeff(float(lv), AA, 0.9))(lam)
+    np.testing.assert_array_equal(out["sbc_pu"], want / (-alpha))

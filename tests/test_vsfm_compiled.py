@@ -1,5 +1,5 @@
 """The unified stack: facade-built VSFM problems on the compiled batched
-TPU path, matching the reference golden baselines.
+batched path, matching the reference golden baselines.
 
 Round-2 verdict item #1: the batched production path must consume
 facade-built problems and carry the full flux physics (density dispatch,
@@ -119,9 +119,7 @@ def test_batched_columns_independent():
 def test_merged_residual_and_jac_equals_separate():
     """RichardsGE.residual_and_jac_values is bitwise-equal to the two
     separate calls (kept as a tested API for fused-evaluation drivers;
-    the batched Newton currently evaluates separately — the fused form
-    measured SLOWER on the v5e due to Jacobian carries through the
-    line-search while_loops)."""
+    the batched Newton evaluates separately by default)."""
     import jax.numpy as jnp
     import __graft_entry__ as g
 
